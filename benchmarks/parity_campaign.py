@@ -532,5 +532,5 @@ def main():
 
 
 if __name__ == "__main__":
-    os.environ.setdefault("LONGTR_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.exit(main())

@@ -143,8 +143,8 @@ def main():
     workload = sys.argv[1] if len(sys.argv) > 1 else "trio"
     import jax
     jax.config.update("jax_platforms", "cpu")
-    os.environ["LONGTR_PLATFORM"] = "cpu"
-    from longtr_tpu.ops.pairhmm import enable_compile_cache
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    from longtr_tpu.placement import enable_compile_cache
     enable_compile_cache()
 
     if workload == "trio":

@@ -39,7 +39,7 @@ def main():
     if "--cpu" in sys.argv:
         import jax
         jax.config.update("jax_platforms", "cpu")
-    from longtr_tpu.ops.pairhmm import enable_compile_cache
+    from longtr_tpu.placement import enable_compile_cache
     enable_compile_cache()
 
     tmpdir = tempfile.mkdtemp()
@@ -92,7 +92,7 @@ def main():
 
     # ---- all shards fresh, timed ----------------------------------------
     shard_paths = []
-    metrics_total = {"num_dispatches": 0, "num_syncs": 0}
+    metrics_total = {"device_chunks": 0, "host_chunks": 0, "num_syncs": 0}
     t_all = time.time()
     for i in range(n_shards):
         out = os.path.join(tmpdir, f"shard{i}.vcf.gz")
@@ -102,11 +102,12 @@ def main():
                                 f"{i}/{n_shards}", "--shard-mode", "block",
                                 "--metrics-out", mpath]) == 0
         m = json.load(open(mpath))
-        metrics_total["num_dispatches"] += m.get("num_dispatches", 0)
+        metrics_total["device_chunks"] += m.get("device_chunks", 0)
+        metrics_total["host_chunks"] += m.get("host_chunks", 0)
         metrics_total["num_syncs"] += m.get("num_syncs", 0)
         print(f"shard {i}/{n_shards}: {m['num_genotype_success']} loci in "
               f"{time.time() - t0:.1f}s "
-              f"(dispatches {m.get('num_dispatches')}, "
+              f"(device chunks {m.get('device_chunks')}, "
               f"syncs {m.get('num_syncs')})", flush=True)
         shard_paths.append(out)
     dt_all = time.time() - t_all
@@ -127,7 +128,8 @@ def main():
           f"-> {n_loci / dt_all:.1f} loci/s")
     print(f"merge wall: {t_merge:.2f}s")
     print(f"peak RSS: {peak_rss_mb():.0f} MB")
-    print(f"device dispatches: {metrics_total['num_dispatches']}  "
+    print(f"device chunks: {metrics_total['device_chunks']}  "
+          f"host chunks: {metrics_total['host_chunks']}  "
           f"host syncs: {metrics_total['num_syncs']}")
     print("checkpoint-resume: byte-identical to fresh shard run")
     return 0

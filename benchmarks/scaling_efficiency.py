@@ -87,7 +87,7 @@ def main():
     fasta, bed, bams, loci, _ = build_catalog(tmpdir, n_loci)
     base = ["--bams", ",".join(bams), "--fasta", fasta, "--regions", bed,
             "--min-reads", "5", "--quiet"]
-    env = dict(os.environ, LONGTR_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
 
     core_sets = [",".join(str(cpu_ids[hosts * c + h]) for c in range(cores))
                  for h in range(hosts)]

@@ -67,7 +67,7 @@ class Config:
     stutter_in: str = ""
     stutter_out: str = ""
 
-    # TPU dispatch scheduling: number of loci whose pair-HMM work is fused
+    # Dispatch scheduling: number of loci whose pair-HMM work is fused
     # into one device call (the reference is strictly per-locus).  Large
     # windows amortize dispatch latency; host memory per window is tiny.
     base_qual_trim: str = "5"   # --read-qual-trim; > ' ' gates the

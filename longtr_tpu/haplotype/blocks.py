@@ -7,7 +7,7 @@ block has a reference sequence plus alternates.  The reference enumerates the
 cartesian product with a reflected-Gray-code counter so only one block changes
 per step (Haplotype.cpp:157-196) — that ordering defines the haplotype index
 space used everywhere (hap_to_allele maps, log_aln_probs columns), so we
-reproduce it exactly.  The column-reuse trick it enables is irrelevant on TPU
+reproduce it exactly.  The column-reuse trick it enables is irrelevant here
 (all haplotypes are scored in one batch), but the *ordering* is semantic.
 """
 

@@ -628,7 +628,7 @@ class BamReader:
 
         Decodes sliding windows of the BAM (``WINDOW_BYTES`` compressed) and
         serves any locus whose BAI chunk is contained in a cached window —
-        the TPU-side analog of the reference's forward-seek min_offset cache
+        this implementation's analog of the reference's forward-seek min_offset cache
         (bam_io.cpp:143-199), but amortized over whole decode windows.
         Returns None when the native library or index is unavailable so the
         caller falls back to the streaming path.

@@ -3,7 +3,7 @@
 set -e
 cd "$(dirname "$0")"
 # -ffp-contract=off: FMA contraction changes last-ulp pair-HMM results and
-# would break the enforced bit-identity with the jnp scan / Pallas kernel.
+# would break the enforced bit-identity with the jnp scan / CUDA kernel.
 # Must match the flags in native/__init__.py's auto-build.
 g++ -O3 -march=native -ffp-contract=off -shared -fPIC -o liblongtr_native.so longtr_native.cc -lz
 echo "built $(pwd)/liblongtr_native.so"

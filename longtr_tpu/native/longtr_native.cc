@@ -1389,7 +1389,7 @@ extern "C" long ltr_poa_consensus(const char* seqs, const long* lens,
 // longtr_tpu/ops/pairhmm.py::pairhmm_scan operation-for-operation in f32
 // (same expression order, no FMA contraction — the library builds with
 // -ffp-contract=off) so results are bit-identical to the jnp scan and the
-// Pallas kernel.  Vectorizes over a tile of pairs in the inner loops.
+// CUDA kernel.  Vectorizes over a tile of pairs in the inner loops.
 
 #include <cmath>
 #include <cstdlib>
@@ -1419,9 +1419,9 @@ static void pairhmm_range(
   const float i2i = trans[0], i2m = trans[1], d2d = trans[2], d2m = trans[3],
               m2m = trans[4], m2i = trans[5], m2d = trans[6];
 
-  // Transposed tiles: TL pairs ride the SIMD lanes (same layout idea as the
-  // Pallas kernel); every inner loop over t vectorizes, including the D
-  // running max (independent per lane, same op order as the jnp scan).
+  // Transposed tiles: TL pairs ride the SIMD lanes; every inner loop over
+  // t vectorizes, including the D running max (independent per lane, same
+  // op order as the jnp scan).
   constexpr long TL = 16;
   std::vector<float> Mp(Mdim * TL), Ip(Mdim * TL), Dp(Mdim * TL),
       Mn(Mdim * TL), In(Mdim * TL), Dn(Mdim * TL);
@@ -1544,7 +1544,7 @@ static void pairhmm_range(
       Dp.swap(Dn);
       // Tile early-exit: the band-fail flag is sticky (score becomes
       // BAND_FAIL no matter what later rows hold — same semantics as the
-      // accumulated fail flag in the Pallas kernel), and a lane past its
+      // accumulated fail flag in the scan), and a lane past its
       // last haplotype row is frozen.  Once every real lane is failed,
       // decided, or complete, later rows cannot change any output.
       bool all_done = true;

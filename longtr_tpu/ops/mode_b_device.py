@@ -23,7 +23,8 @@ Row kinds (precomputed per element per row on host):
 
 In float64 on CPU the scan is elementwise-identical to the host numpy path
 (same association order everywhere; max/cummax are order-exact); production
-runs float32 on TPU (tests bound the drift).
+runs float32 on the default device, the GPU where there is one (tests bound
+the drift against the f64 host path).
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ by summing mate LLs into both entries (seq_stutter_genotyper.cpp:542-559) and
 the weight is only honoured here in HipSTR's original code path.  We replicate
 the reference behaviour (weights unused in the posterior sum).
 
-TPU design: one fused jnp computation per locus batch —
+Device design: one fused jnp computation per locus batch —
 ``T = logaddexp(LL+p1, LL+p2)`` outer over (a1, a2), then a segment-sum over
 reads grouped by sample.  All log-space, float32 on device with a float64
 NumPy oracle for tests.

@@ -28,7 +28,7 @@ def _free_port():
 
 
 def test_distributed_two_process_matches_single(tmp_path, monkeypatch):
-    monkeypatch.setenv("LONGTR_PLATFORM", "cpu")  # inherited by subprocesses
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")  # inherited by subprocesses
     fx = standard_fixture(str(tmp_path))
     base = ["--bams", ",".join(fx["bams"]), "--fasta", fx["fasta"],
             "--regions", fx["bed"], "--min-reads", "5", "--quiet"]

@@ -255,14 +255,14 @@ def _mode_a_fixture(period=2, n_units=8):
 def test_mode_a_hapaligner_matches_reference():
     """Our mode-A scoring (trim + f32 DP) vs the compiled reference
     HapAligner::process_read, per read per haplotype."""
-    from longtr_tpu.pipeline.seq_genotyper import HapAlignerTPU
+    from longtr_tpu.pipeline.seq_genotyper import HapAlignerBatch
     from longtr_tpu.ops.pairhmm import pairhmm_score_oracle
     from longtr_tpu.pipeline.seq_genotyper import trim_read_for_hapalign
 
     for period, n_units in [(2, 8), (3, 6), (1, 20), (4, 5)]:
         lf, rep, alts, rs, rf, start, reads = _mode_a_fixture(period, n_units)
         hap = _our_haplotype(lf, rep, alts, period, rf, start=start)
-        aligner = HapAlignerTPU(hap, indel_flank_len=5)
+        aligner = HapAlignerBatch(hap, indel_flank_len=5)
         ours = aligner.score_pools(reads)                 # (reads, haps) f32
         for ri, aln in enumerate(reads):
             want, seed = ro.hap_aligner_scores(

@@ -46,7 +46,7 @@ def test_sharded_runs_merge_to_single_run(tmp_path):
 def test_workers_mode_matches_single_run(tmp_path, monkeypatch):
     """`--workers 2` (in-process multi-worker fan-out + merge) reproduces
     the single-process VCF body and leaves no shard litter behind."""
-    monkeypatch.setenv("LONGTR_PLATFORM", "cpu")  # inherited by subprocesses
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")  # inherited by subprocesses
     fx = standard_fixture(str(tmp_path))
     base = ["--bams", ",".join(fx["bams"]), "--fasta", fx["fasta"],
             "--regions", fx["bed"], "--min-reads", "5", "--quiet"]
